@@ -2,8 +2,8 @@
 speed-colored frames + a checkpoint.
 
 The canonical workload of the reference (SampleScene.unity:362-376) end to
-end: spawn preset 2, faithful frame semantics, Pallas backend, host-side
-point-sprite rendering. Usage:
+end: spawn preset 2, faithful frame semantics, the benchmark's default
+neighbor backend, host-side point-sprite rendering. Usage:
 
     python examples/dam_break_demo.py [--particles 262144] [--frames 120]
                                       [--out examples/out]
@@ -28,7 +28,8 @@ def main() -> int:
                     help="frames per scan dispatch")
     ap.add_argument("--out", default=os.path.join(
         os.path.dirname(__file__), "out"))
-    ap.add_argument("--neighbor", default="pallas")
+    ap.add_argument("--neighbor", default=None,
+                    help="neighbor backend (default: the benchmark's)")
     ap.add_argument("--xsph", type=float, default=0.0)
     ap.add_argument("--alpha-visc", type=float, default=0.0)
     a = ap.parse_args()
@@ -36,8 +37,7 @@ def main() -> int:
     import jax
     import numpy as np
 
-    from sphfluidsimulation_tpu import SimConfig
-    from sphfluidsimulation_tpu.bench import scaled_config
+    from sphfluidsimulation_tpu.bench import DEFAULT_NEIGHBOR, scaled_config
     from sphfluidsimulation_tpu.render.camera import OrbitCamera
     from sphfluidsimulation_tpu.render.export import render_frame_png, save_png
     from sphfluidsimulation_tpu.render.meshprops import (RenderParams,
@@ -45,15 +45,15 @@ def main() -> int:
     from sphfluidsimulation_tpu.sim.stepper import initial_state, make_rollout
     from sphfluidsimulation_tpu.utils.checkpoint import save_checkpoint
     from sphfluidsimulation_tpu.utils.metrics import MetricsLogger
-    from sphfluidsimulation_tpu.utils.profiling import device_sync
 
+    neighbor = a.neighbor or DEFAULT_NEIGHBOR
     cfg = scaled_config(a.particles).replace(
         xsph=a.xsph, artificial_viscosity=a.alpha_visc)
     os.makedirs(a.out, exist_ok=True)
     print(f"scene: {cfg.n_particles} particles, R={cfg.bucket_resolution}, "
-          f"backend={a.neighbor}, device={jax.devices()[0]}", flush=True)
+          f"backend={neighbor}, device={jax.devices()[0]}", flush=True)
 
-    rollout = make_rollout(cfg, a.chunk, neighbor=a.neighbor)
+    rollout = make_rollout(cfg, a.chunk, neighbor=neighbor)
     state = initial_state(cfg)
     rp = RenderParams.from_config(cfg)
     cam = OrbitCamera(distance=8.0, yaw=35.0, pitch=18.0)
@@ -72,9 +72,8 @@ def main() -> int:
     frame = 0
     t0 = time.time()
     while frame < a.frames:
-        out = rollout(state)
+        out = jax.block_until_ready(rollout(state))
         state, metrics = out[0], out[1]
-        device_sync(state.pos)
         frame += a.chunk
         last = jax.tree.map(lambda x: x[-1], metrics)
         rec = log.log(frame, last)

@@ -1,6 +1,6 @@
-"""sphfluidsimulation_tpu — TPU-native SPH fluid simulation framework.
+"""sphfluidsimulation_tpu — SPH fluid simulation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the Unity
+A from-scratch JAX/XLA rebuild of the capabilities of the Unity
 compute-shader simulator ``leandro-barcelos/SPHFluidSimulation`` (see
 SURVEY.md for the structural map of the reference). Public API:
 

@@ -14,6 +14,9 @@ import json
 import os
 import sys
 
+from .bench import BENCH_BACKENDS, DEFAULT_NEIGHBOR
+from .sim.stepper import BACKENDS
+
 
 def _add_config_flags(p: argparse.ArgumentParser) -> None:
     # one flag per reference inspector field (SphFluidSimulation.cs:34-53)
@@ -33,9 +36,7 @@ def _add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--high-speed", type=float, default=0.5)
     p.add_argument("--frame-dt", type=float, default=1.0 / 60.0)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--neighbor",
-                   choices=["sites", "pallas", "slotted", "gather", "brute"],
-                   default="slotted")
+    p.add_argument("--neighbor", choices=list(BACKENDS), default="slotted")
     p.add_argument("--corrected", action="store_true",
                    help="rebuild bucket+density every substep instead of "
                         "the reference's once-per-frame reuse")
@@ -188,11 +189,15 @@ def _run_slab(a) -> int:
         cfg = _config_from_args(a)
         state0 = initial_state(cfg)
     mesh = Mesh(np.array(devs[:a.shards]), ("sp",))
+    busiest = int(slab.slab_populations(state0, cfg, a.shards).max())
     step, spec = slab.make_slab_step(cfg, mesh, halo=a.halo,
-                                     row_slack=a.row_slack)
+                                     row_slack=a.row_slack, busiest=busiest)
     step = jax.jit(step)
     phys = PhysParams.from_config(cfg)
     sst = slab.distribute(state0, cfg, spec, mesh)
+    # device of each slab shard, in slab order (one shard per device)
+    shard_devices = [sh.device.id for sh in sorted(
+        sst.pos.addressable_shards, key=lambda sh: sh.index[0].start or 0)]
     log = MetricsLogger(a.metrics, n_particles=cfg.n_particles,
                         substeps=cfg.substeps)
     for f in range(start_frame + 1, start_frame + a.frames + 1):
@@ -210,6 +215,7 @@ def _run_slab(a) -> int:
     print(json.dumps({"frames": start_frame + a.frames, "shards": a.shards,
                       "slab_z": spec.slab_z, "halo": spec.halo,
                       "rows_per_device": spec.cap_rows,
+                      "shard_devices": shard_devices,
                       "lost": int(lost), **last}))
     return 0
 
@@ -305,16 +311,15 @@ def cmd_sweep(a) -> int:
 def cmd_bench(a) -> int:
     from .bench import run_bench
     result = run_bench(n_particles=a.particles, frames=a.frames,
-                       warmup_frames=a.warmup, neighbor=a.neighbor,
-                       host_loop=a.host_loop)
+                       neighbor=a.neighbor, late_after=a.late_after)
     print(json.dumps(result))
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="sphfluidsimulation_tpu",
-        description="TPU-native SPH fluid simulation")
+        description="SPH fluid simulation in JAX")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("run", help="advance a scene and export artifacts")
@@ -348,7 +353,9 @@ def main(argv=None) -> int:
     p.add_argument("--halo", type=int, default=2,
                    help="slab halo z-planes (drift tolerance + 1)")
     p.add_argument("--row-slack", type=float, default=2.0,
-                   help="per-device particle row capacity = N/shards·slack")
+                   help="per-device particle rows = the busiest slab at "
+                        "the start + (slack-1)·N/shards of headroom, at "
+                        "most N")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("export", help="render a checkpoint to png/ply")
@@ -373,17 +380,17 @@ def main(argv=None) -> int:
     p = sub.add_parser("bench", help="measure throughput")
     p.add_argument("--particles", type=int, default=1048576)
     p.add_argument("--frames", type=int, default=20)
-    p.add_argument("--warmup", type=int, default=5)
-    p.add_argument("--neighbor", choices=["sites", "pallas", "slotted", "gather"],
-                   default="pallas")
-    p.add_argument("--host-loop", action="store_true",
-                   help="chain per-frame dispatches from the host instead "
-                        "of one frames-lax.scan (required for the sites "
-                        "tier at 1M — the scan composition faults the TPU "
-                        "worker there; see BENCH_NOTES)")
+    p.add_argument("--neighbor", choices=list(BENCH_BACKENDS),
+                   default=DEFAULT_NEIGHBOR)
+    p.add_argument("--late-after", type=int, default=0,
+                   help="also time a late window starting at this frame "
+                        "(0 = spawn window only)")
     p.set_defaults(fn=cmd_bench)
+    return parser
 
-    a = parser.parse_args(argv)
+
+def main(argv=None) -> int:
+    a = build_parser().parse_args(argv)
     from .utils.compcache import enable_compilation_cache
     enable_compilation_cache()
     return a.fn(a)

@@ -87,7 +87,7 @@ class SimConfig:
     artificial_viscosity: float = 0.0
     # Voxel slot capacity (the reference silently drops particles beyond 32
     # per voxel, Bucket.compute:2,30-35). None disables the drop entirely —
-    # supported by the 'brute' and 'pallas' backends, whose candidate
+    # supported by the 'brute' and 'sites' backends, whose candidate
     # structures are not capacity-shaped; 'slotted'/'gather' allocate static
     # per-voxel slot arrays and raise a ValueError for None (pick a cap).
     voxel_capacity: int | None = REFERENCE_VOXEL_CAPACITY
@@ -108,13 +108,11 @@ class SimConfig:
     # (window flops scale with site_capacity_i × site_capacity).
     site_capacity_i: int | None = None
     # Site-grid z-banding: process the domain as this many sequential
-    # z-bands per pass, each a dense [K, (span+6)·R²] slab-local grid —
-    # the dense R³ grids at R≥~60 (1M scale) overflow worker memory as
-    # one piece (BENCH_NOTES round 3). 1 = single full grid; 0 = auto
-    # (bands chosen so a band's grid stays under ~128k cells). The banded
-    # walk visits the same candidate set with identical site ranks, so
-    # results are bit-identical to the full grid on TPU and ULP-close on
-    # CPU (tests/test_sites.py).
+    # z-bands per pass, each a dense [K, (span+6)·R²] slab-local grid, to
+    # bound the grids' memory. 1 = single full grid; 0 = auto (bands only
+    # past sites.SITE_BAND_AUTO_CELLS cells). The banded walk visits the
+    # same candidate set with identical site ranks, so results match the
+    # full grid to the ulp (tests/test_sites.py).
     site_bands: int = 0
     # Noise seed offset (the reference noise is a pure function of position
     # and particle index; seed shifts the noise-domain offset).

@@ -1,6 +1,6 @@
 // Native frame codec: point-sprite rasterization + binary PLY export.
 //
-// The TPU-native equivalent of the reference's render path back end
+// The headless equivalent of the reference's render path back end
 // (Graphics.DrawMeshInstancedIndirect + InstancedIndirectColor.shader:
 // transparent unlit instanced draw, ZWrite off): frames are exported
 // host-side, and at multi-million particle counts the Python/numpy splatter

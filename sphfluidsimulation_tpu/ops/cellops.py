@@ -4,7 +4,7 @@ Replaces the reference's per-thread 27-voxel × 32-slot walk
 (Density.compute:42-57, VelPos.compute:67-98) with a static-shaped
 fixed-fanout gather: a `lax.scan` over the 27 cell offsets, each step
 gathering one voxel's C candidate slots for every particle. Shapes are fully
-static — the TPU requirement — and out-of-range cells / empty slots are
+static, as XLA requires, and out-of-range cells / empty slots are
 masked, reproducing the reference's bounds check (Density.compute:46) and
 sentinel break (:52).
 
@@ -13,8 +13,8 @@ particles against the full candidate arrays — the building block for
 spatial domain decomposition (each device computes its own rows after an
 all_gather of the candidate source arrays).
 
-This is the correctness tier (BASELINE configs 2-3); the Pallas cell-blocked
-kernel is the throughput tier.
+Two layouts of the same walk: ``gather`` (per-candidate gathers, below) and
+``slotted`` (packed 128-float slot rows, further down).
 """
 
 from __future__ import annotations
@@ -134,18 +134,17 @@ def fluid_forces_grid(pos: jax.Array, vel: jax.Array, rho: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# Slotted ("tier B") formulation: identical results, TPU-friendly access.
+# Slotted formulation: identical results, one row gather per window cell.
 #
-# The naive formulation above random-gathers every candidate's pos/vel/rho
-# per (particle x offset x slot) — and, worse for TPU tiling, the gathered
-# arrays have tiny minor dimensions (3, or C=32) that pad to the 128-lane
-# vector width, wasting up to 42x of every byte moved. Here candidate data
-# is pre-packed into cell-major rows of EXACTLY 128 lanes:
+# The formulation above gathers every candidate's pos/vel/rho per
+# (particle x offset x slot), through arrays with tiny minor dimensions
+# (3, or C=32). Here candidate data is pre-packed into cell-major rows of
+# 4C = 128 floats:
 #
 #     posocc[c]  = [ x·C | y·C | z·C | occ·C ]      (C = 32 slots)
 #     velrho[c]  = [ vx·C | vy·C | vz·C | rho·C ]
 #
-# so each window-cell lookup is ONE perfectly-utilized row gather per array.
+# so each window-cell lookup is ONE contiguous row gather per array.
 # Two semantic notes, both exactness-preserving:
 #
 # * The reference's j==i skip (VelPos.compute:82) is reproduced EXACTLY: the
@@ -156,8 +155,7 @@ def fluid_forces_grid(pos: jax.Array, vel: jax.Array, rho: jax.Array,
 #   0 via the epsilon guard (:37), viscosity carries v_i − v_i = 0), but a
 #   particle with ±inf velocity or density computes inf − inf = NaN /
 #   inf · 0 = NaN on its OWN lane — a NaN the reference never evaluates,
-#   systematically perturbing trap populations on violent configs
-#   (VERDICT round 4 weak #3).
+#   systematically perturbing trap populations on violent configs.
 # * Empty slots carry id+1 = 0 and are select-gated out (the reference
 #   breaks at the sentinel, Bucket.compute:33; our build packs occupied
 #   slots first, so the candidate SET is identical).
@@ -192,7 +190,7 @@ def _window_cells(cell_rows: jax.Array, off: jax.Array, r: int
 
 def pack_slots(table: jax.Array, capacity: int, n: int, pos: jax.Array,
                vel: jax.Array | None, rho: jax.Array | None) -> PackedSlots:
-    """Scatter per-particle values into the 128-lane packed layout."""
+    """Scatter per-particle values into the packed slot-row layout."""
     ids = table.reshape(-1, capacity)
     occ_b = ids < n
     # occupancy lane = particle id + 1 (0 empty) — carries the candidate's

@@ -1,9 +1,9 @@
-"""Uniform-grid neighbor structure, TPU-native.
+"""Uniform-grid neighbor structure.
 
 The reference builds a dense voxel table of ``R³ × 32`` particle-id slots
 with atomic compare-exchange insertion (Bucket.compute:18-36) — insertion
 order is a GPU race and overflow beyond 32 slots per voxel is silently
-dropped. The TPU-native rebuild is *sort-based and deterministic*: particles
+dropped. This rebuild is *sort-based and deterministic*: particles
 are ranked within their voxel by a stable sort on cell id (ties broken by
 particle index), which is strictly better (run-to-run reproducible) while
 preserving the reference's capacity/drop semantics when ``capacity`` is set.
@@ -51,12 +51,10 @@ def flat_cell_id(cell: jax.Array, r: int) -> jax.Array:
 def run_starts(sorted_vals: jax.Array) -> jax.Array:
     """First index of each equal-value run in an ascending-sorted array.
 
-    Value-identical to ``jnp.searchsorted(a, a, side='left')``, which XLA
-    lowers on TPU to a ~log2(n)-trip while loop of row gathers (the 422k-query
-    start-table build alone measured 65 ms at 1M on v5e,
-    scripts/probe_build_tpu.py); the run-boundary compare + cummax form is
-    one pass at bandwidth speed. Used by every capacity-rank pass (this
-    module, sites, slab) — the rank of a particle within its voxel is
+    Value-identical to ``jnp.searchsorted(a, a, side='left')``, which is a
+    binary search per element; the run-boundary compare + cummax form is one
+    elementwise pass. Used by every capacity-rank pass (this module, sites,
+    slab) — the rank of a particle within its voxel is
     ``i - run_starts(cid_s)[i]`` in sorted order.
     """
     n = sorted_vals.shape[0]

@@ -1,16 +1,13 @@
 """Site-grid SPH backend — the exactness / decomposition tier.
 
-(Measured on v5e it is S = R³-bound at ~1.1-1.4M particle-substeps/s —
-slower than the pallas tier at golden occupancy, see BENCH_NOTES.md — but
-it is fresh-centered by construction, exact on explosive scenes, and its
+It is fresh-centered by construction, exact on explosive scenes, and its
 dense slab-local grids drive the multi-device decomposition in
-parallel/slab.py.)
+parallel/slab.py. Its cost scales with the grid (R³ cells × site
+capacity²), not with the particles; PERF.md has its H100 times.
 
 The reference walks, per particle, a 27-voxel window of a dense bucket table
-(Density.compute:42-57, VelPos.compute:67-98). Gather-based formulations of
-that walk are bandwidth-crippled on TPU (~10 GB/s effective random access).
-This backend removes *all* gathers from the hot path by storing candidates
-in a dense voxel-slot grid,
+(Density.compute:42-57, VelPos.compute:67-98). This backend removes *all*
+gathers from the hot path by storing candidates in a dense voxel-slot grid,
 
     field[k, c]   slot k < K, flat cell c = x + y·R + z·R²   (k-major),
 
@@ -19,8 +16,8 @@ so the candidates of cell ``c`` at window offset ``(ox,oy,oz)`` live at
 (cells are x-minor, the reference's own flat-id rule, Bucket.compute:28).
 The 27-cell gather becomes 27 shifted slices of a padded array, and the
 pair interaction between every i-slot and every j-slot is one dense
-broadcast ``[Ki,1,S] × [1,Kj,S]`` that XLA fuses onto the VPU at full tile
-utilization (measured ~2.4 Tops/s on v5e vs ~10 GB/s for gathers).
+broadcast ``[Ki,1,S] × [1,Kj,S]`` that XLA fuses into dense elementwise
+loops.
 
 Sites, not particles
 --------------------
@@ -48,8 +45,7 @@ Exactness under the reference's stale-bucket semantics
 The reference builds the bucket once per frame but re-centers each window
 on the particle's *fresh* cell every substep and reads *fresh* positions
 and velocities through the stale candidate lists (VelPos.compute:57-58,
-86-94). Both grids are therefore rebuilt every substep (sorts cost ~0.3 ms
-at 1M on v5e — they are NOT the bottleneck):
+86-94). Both grids are therefore rebuilt every substep:
 
 * the j-grid keys sites by their frame-stale flat cell id (including the
   reference's x-wrap aliasing) but carries fresh positions/velocities, and
@@ -365,11 +361,10 @@ def _kj_scanned(body, kj: int):
     """Fold ``body`` over the j-slot axis one slot at a time.
 
     The dense pair broadcast materializes [Ki, Kj, S] temporaries —
-    432 MB per temp at 1M particles (Ki=Kj=16, S=75³), which is what
-    reproducibly crashed the TPU worker at 262k-1M in round 2 (XLA temp
-    bloat). Scanning Kj keeps every temp at [Ki, 1, S] with identical
-    flops; the bodies already broadcast over the j axis, so a [1, S]
-    slice flows through them unchanged. Summation order over j-slots
+    432 MB per temp at 1M particles (Ki=Kj=16, S=75³), several per offset.
+    Scanning Kj keeps every temp at [Ki, 1, S] with identical flops; the
+    bodies already broadcast over the j axis, so a [1, S] slice flows
+    through them unchanged. Summation order over j-slots
     changes (slot-by-slot instead of one axis reduction) — float-order
     only, the candidate SET is identical.
     """
@@ -699,11 +694,13 @@ def fluid_forces_sites(pos: jax.Array, vel: jax.Array, rho: jax.Array,
 # z-banded grids (flagship-scale variant)
 # ---------------------------------------------------------------------------
 
-# Largest band-local grid (cells) the auto rule allows: sized so a banded
-# 1M-particle pass (R=75) works in grids no larger than the proven-stable
-# 262k full grid (47³ ≈ 104k cells) — the one-piece 75³ grid reproducibly
-# crashed the TPU worker (BENCH_NOTES rounds 2-3).
-SITE_BAND_AUTO_CELLS = 1 << 17
+# Largest grid (cells) the auto rule runs as one piece. Measured on an
+# H100 80GB (PERF.md): one band at R=75 (1,048,576 particles) ran 1.33x
+# faster than five bands, and one band at R=118 (4,194,304, the reference's
+# cap) peaked at 25.0 GB. Peak memory grows with R³, so 2^21 cells (R ≤ 128,
+# ~32 GB) keeps every scaled scene up to the cap in one band inside the 60 GB
+# a process reserves; only larger grids are banded.
+SITE_BAND_AUTO_CELLS = 1 << 21
 _BAND_HALO = 3  # planes; covers the widest spawn-escalation window (w=3)
 
 
@@ -730,10 +727,10 @@ def _banded_pass(pos, vel, rho, stale_cid, in_cap, p: PhysParams, r: int,
     within a voxel depend only on that voxel's rows (a voxel lies wholly
     in one plane), so each band's grid holds exactly the full grid's
     sites for its planes and each i-site accumulates the identical
-    candidate set in the identical order: on TPU the results are
-    bit-identical to the one-piece pass (density is bit-identical on CPU
-    too; the CPU force pass fuses/FMA-contracts differently per grid
-    extent → ULP-level differences, pinned in tests/test_sites.py).
+    candidate set in the identical order: density is bit-identical to the
+    one-piece pass, and the force pass differs only where XLA fuses and
+    FMA-contracts differently per grid extent (ULP level, pinned in
+    tests/test_sites.py).
     Certificates count each voxel's drops in its interior owner band only.
     """
     n = pos.shape[0]

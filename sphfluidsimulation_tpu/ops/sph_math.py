@@ -46,8 +46,7 @@ def grad_w_press_over_r(abs_r, h, h6):
     radial profile — the reference's deviation from Müller-03's (h−r)².
 
     Kept component-wise (caller multiplies dx, dy, dz separately) so big
-    pairwise intermediates never materialize trailing-dim-3 arrays, which
-    TPU tiling would pad 3→128.
+    pairwise intermediates never materialize trailing-dim-3 arrays.
     """
     c = 45.0 / _PI
     diff_r = h - abs_r

@@ -1,10 +1,10 @@
 """Spatial domain decomposition over a device mesh (shard_map).
 
 The reference has no multi-device story (single GPU, SURVEY.md §2). The
-TPU-native scaling axis for SPH is particle count, and the decomposition
-here shards the *particle rows*: each device owns N/D particles, computes
-their density/forces/integration locally, and sees candidate neighbors via
-`all_gather` of the source arrays over ICI.
+scaling axis for SPH is particle count, and the decomposition here shards
+the *particle rows*: each device owns N/D particles, computes their
+density/forces/integration locally, and sees candidate neighbors via
+`all_gather` of the source arrays.
 
 Communication per frame (faithful semantics, SphFluidSimulation.cs:96-102):
 
@@ -20,8 +20,8 @@ collective choreography. Metrics are reduced with psum/pmax.
 Row ownership is by particle index (round-robin-free contiguous blocks);
 because candidates are fully gathered, correctness does not depend on any
 spatial assignment — sorting rows by position would only improve locality,
-which the gather formulation doesn't exploit anyway. The Pallas tier will
-refine this to true slab decomposition with halo exchange.
+which the gather formulation doesn't exploit anyway. parallel/slab.py is
+the true slab decomposition with halo exchange.
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ def make_batched_sharded_step(cfg: SimConfig, mesh: Mesh, *,
                               domain_axis: str = "sp"):
     """2D-parallel frame step: scenes sharded over ``scene_axis`` (pure data
     parallelism) × particle rows sharded over ``domain_axis`` (spatial
-    decomposition with all_gather neighbor exchange over ICI).
+    decomposition with all_gather neighbor exchange).
 
     state arrays are [B, N, ...] sharded P(scene_axis, domain_axis); phys
     leaves are [B] sharded P(scene_axis). This is the "full training step"

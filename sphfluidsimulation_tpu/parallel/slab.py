@@ -1,12 +1,15 @@
 """True spatial slab decomposition for the site-grid backend.
 
 This is the multi-device tier the reference never had (single GPU,
-SURVEY.md §2) realized the TPU way: the unit cube is cut into z-slabs of
+SURVEY.md §2): the unit cube is cut into z-slabs of
 the bucket grid, one per device along mesh axis ``sp``, and each device
 owns the particles whose frame-binding voxel falls in its slab. Per-device
-memory is O(N/D + halo), provable from the array shapes:
+memory is O(N/D + halo) for an even split (rows follow the busiest slab),
+provable from the array shapes:
 
-* particle rows: ``[C, …]`` with ``C = row_capacity ≈ N/D · slack``;
+* particle rows: ``[C, …]`` with ``C`` = the busiest slab's population
+  plus ``(slack − 1) · N/D`` rows of in-flight headroom (``N/D · slack``
+  for an even split; :func:`make_spec`);
 * site grids:   ``[K, S_loc]`` with ``S_loc = (slab_z + 2·halo) · R²``.
 
 No array of global size N or R³ appears anywhere inside the sharded step.
@@ -25,18 +28,17 @@ substep therefore needs only
    grid via ``grid_s``/``member``/``zbase``), and
 2. a halo exchange: two ``lax.ppermute`` hops shipping the ``halo``
    boundary z-planes of the j-field stack to the two slab neighbors —
-   boundary cells only, riding ICI.
+   boundary cells only (NCCL between GPUs).
 
 The i-side (fresh-cell evaluation windows) tolerates drift of up to
 ``halo − 1`` z-planes past the owned slab; beyond that the evaluation
 cell is clamped into the covered band and counted in the exactness
-certificate (same loud-not-wrong contract as the Pallas drift counter).
+certificate (loud, not wrong).
 
 Particles migrate between slabs at frame boundaries via a bidirectional
 ring of ``ppermute`` hops (``D − 1`` hops per direction by default, so any
 jump distance is delivered); rows that cannot be placed (row-capacity
-overflow) are dropped and counted — with the default 2× slack this never
-fires in practice.
+overflow) are dropped and counted in ``lost``.
 
 Collectives used: ``ppermute`` (halo + migration), ``psum``/``pmax``
 (metrics). There is no all_gather anywhere.
@@ -44,6 +46,7 @@ Collectives used: ``ppermute`` (halo + migration), ``psum``/``pmax``
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import jax
@@ -82,13 +85,26 @@ class SlabSpec(NamedTuple):
 
 
 def make_spec(cfg: SimConfig, n_dev: int, *, halo: int = 2,
-              row_slack: float = 2.0, hops: int | None = None) -> SlabSpec:
+              row_slack: float = 2.0, hops: int | None = None,
+              busiest: int | None = None) -> SlabSpec:
+    """Slab geometry and per-device row capacity.
+
+    Rows per device: the busiest slab's starting population (``busiest``,
+    from :func:`slab_populations`; default an even split, ⌈N/D⌉) plus
+    ``(row_slack − 1) · ⌈N/D⌉`` rows of headroom for particles arriving
+    in flight, at most N. An even split thus gets ``N/D · row_slack``; an
+    unbalanced spawn gets the rows its busiest slab needs — the golden
+    dam-break's top z-slab owns 54% of 1,048,576 particles at spawn.
+    """
     r = cfg.bucket_resolution
+    n = cfg.n_particles
     slab_z = -(-r // n_dev)
     halo = min(halo, slab_z)
     if halo < 1:
         raise ValueError("halo must be >= 1")
-    cap = -(-int(cfg.n_particles * row_slack) // n_dev)
+    even = -(-n // n_dev)
+    busiest = even if busiest is None else max(busiest, even)
+    cap = min(n, busiest + math.ceil((row_slack - 1.0) * even))
     return SlabSpec(d=n_dev, slab_z=slab_z, halo=halo, cap_rows=cap,
                     hops=n_dev - 1 if hops is None else hops)
 
@@ -248,7 +264,7 @@ def _build_i_local(pos, vel, rho, pid, valid, my, r, ki, spec: SlabSpec,
 def _halo_exchange(jarrs: list[jax.Array], n_pos: int, r: int,
                    spec: SlabSpec, my, axis: str) -> list[jax.Array]:
     """Replace the halo z-planes of the stacked j-fields with the slab
-    neighbors' boundary planes (2 × ppermute over ICI); domain-edge halos
+    neighbors' boundary planes (2 × ppermute); domain-edge halos
     get the empty fill (FAR for the first ``n_pos`` position fields)."""
     zl, hw, d = spec.slab_z, spec.halo, spec.d
     ks = [a.shape[0] for a in jarrs]
@@ -392,7 +408,7 @@ def _make_local_step(cfg: SimConfig, spec: SlabSpec, axis: str):
 
 def make_slab_step(cfg: SimConfig, mesh: Mesh, *, axis: str = "sp",
                    halo: int = 2, row_slack: float = 2.0,
-                   hops: int | None = None):
+                   hops: int | None = None, busiest: int | None = None):
     """Sharded faithful frame step ``(SlabState, phys) → (SlabState, m)``.
 
     All SlabState leaves are sharded ``P(axis)`` on their leading D·C dim.
@@ -401,7 +417,7 @@ def make_slab_step(cfg: SimConfig, mesh: Mesh, *, axis: str = "sp",
     """
     cfg = cfg.validate()
     spec = make_spec(cfg, mesh.shape[axis], halo=halo, row_slack=row_slack,
-                     hops=hops)
+                     hops=hops, busiest=busiest)
     local = _make_local_step(cfg, spec, axis)
     shmapped = jax.shard_map(
         local, mesh=mesh,
@@ -448,13 +464,24 @@ def make_batched_slab_step(cfg: SimConfig, mesh: Mesh, *,
 # ---------------------------------------------------------------------------
 
 
+def slab_populations(state: ParticleState, cfg: SimConfig, n_dev: int):
+    """Particles each of ``n_dev`` z-slabs owns in ``state`` (host-side
+    numpy ``int64[n_dev]``); its max is :func:`make_spec`'s ``busiest``."""
+    import numpy as np
+
+    r = cfg.bucket_resolution
+    own = _owner_of(jnp.asarray(state.pos)[:, 2], r, -(-r // n_dev), n_dev)
+    return np.bincount(np.asarray(own), minlength=n_dev)
+
+
 def distribute(state: ParticleState, cfg: SimConfig, spec: SlabSpec,
                mesh: Mesh | None = None, axis: str = "sp") -> SlabState:
     """Global [N] state → slab row buffers (host-side, concrete).
 
-    Raises if any slab's population exceeds the row capacity — pick a
-    larger ``row_slack`` (the in-flight equivalent during stepping is the
-    certified ``lost`` counter, never an exception).
+    Raises if any slab's population exceeds the row capacity — give
+    :func:`make_spec` the max of :func:`slab_populations` (the in-flight
+    equivalent during stepping is the certified ``lost`` counter, never
+    an exception).
     """
     import numpy as np
 
@@ -476,7 +503,7 @@ def distribute(state: ParticleState, cfg: SimConfig, spec: SlabSpec,
         if rows.size > c:
             raise ValueError(
                 f"slab {d} holds {rows.size} particles > row capacity {c}; "
-                f"increase row_slack")
+                f"size the spec from slab_populations")
         buf_pos[d, :rows.size] = pos[rows]
         buf_vel[d, :rows.size] = vel[rows]
         buf_nan[d, :rows.size] = nan[rows]

@@ -1,7 +1,7 @@
 """Traced physics parameters.
 
 The reference uploads its physics constants as shader uniforms each dispatch
-(SphFluidSimulation.cs:229-265 via ShaderIDs.cs:5-32); the TPU-native
+(SphFluidSimulation.cs:229-265 via ShaderIDs.cs:5-32); the JAX
 equivalent is a pytree of f32 scalars passed through the jitted step, so one
 compiled executable serves every parameter setting — and `vmap` over the
 pytree gives batched multi-scene sweeps (BASELINE config 5) for free.

@@ -4,7 +4,7 @@ particle mesh, orbit camera, and host-side point-sprite frame export.
 Replaces the reference's GPU render stack — UpdateMeshProperties.compute →
 MeshProperties structured buffer → Graphics.DrawMeshInstancedIndirect with
 InstancedIndirectColor.shader — with a jittable properties pass plus
-host-side image/mesh export (there is no swapchain on a TPU; frames are
+host-side image/mesh export (a headless accelerator has no swapchain; frames are
 exported as PNG/PLY/npz instead).
 """
 

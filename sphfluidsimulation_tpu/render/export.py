@@ -2,7 +2,7 @@
 
 The reference draws speed-colored instanced spheres with alpha blending and
 no depth write (InstancedIndirectColor.shader:6-7, 42-44) via
-DrawMeshInstancedIndirect (SphFluidSimulation.cs:107). On TPU there is no
+DrawMeshInstancedIndirect (SphFluidSimulation.cs:107). Headless, there is no
 swapchain, so frames are exported host-side: particles are projected with
 the orbit camera and splatted as depth-sorted colored discs (painter's
 algorithm ~ the reference's transparent, ZWrite-off pass). PNG encoding is
@@ -129,7 +129,7 @@ def assemble_animation(frame_paths: list[str], out_path: str, *,
 
     The reference's user-facing output is a continuously drawn fluid
     (SphFluidSimulation.cs:106-107, one DrawMeshInstancedIndirect per
-    frame); headless TPU runs export stills, and this stitches them into
+    frame); headless runs export stills, and this stitches them into
     the moving-fluid artifact. GIF via Pillow when available, else an APNG
     written with the same stdlib-zlib encoder as save_png.
     """

@@ -13,7 +13,7 @@ Transcribes ``Assets/Resources/UpdateMeshProperties.compute``:
 * color = lerp(blue → red, saturate((|v| − low)/(high − low))) (:62-63)
 
 The MeshProperties struct (float4x4 + float4, :3-6) becomes a pair of
-arrays (mat f32[N,4,4], color f32[N,4]) — struct-of-arrays, TPU layout.
+arrays (mat f32[N,4,4], color f32[N,4]) — struct-of-arrays layout.
 """
 
 from __future__ import annotations

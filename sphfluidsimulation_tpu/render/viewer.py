@@ -2,7 +2,7 @@
 
 The reference's user-facing mode is a real-time instanced draw every frame
 (SphFluidSimulation.cs:106-107, InstancedIndirectColor.shader:32-44) with
-a mouse orbit camera (CameraOrbit.cs:31-74). A headless TPU box has no
+a mouse orbit camera (CameraOrbit.cs:31-74). A headless accelerator has no
 swapchain, so the equivalent here is an exported SELF-CONTAINED html file:
 recorded rollout snapshots are embedded (base64, uint16-quantized
 positions + uint8 speed ramp) and replayed by an inline WebGL1 point

@@ -1,7 +1,7 @@
 """Particle state pytrees.
 
 The reference stores particle state in ping-ponged square float4 textures
-(SphFluidSimulation.cs:138-155); the TPU-native layout is a struct-of-arrays
+(SphFluidSimulation.cs:138-155); here the layout is a struct-of-arrays
 pytree of flat ``[N, 3]`` float32 arrays advanced functionally (no ping-pong —
 XLA double-buffers for us). Particle index ``i`` corresponds to reference
 texel ``(i % res, i / res)`` (Density.compute:53, VelPos.compute:84).
@@ -65,7 +65,8 @@ class StepMetrics(NamedTuple):
     kinetic_energy: jax.Array # f32[]
     nan_events: jax.Array     # i32[] — total NaN traps this frame
     overflow: jax.Array       # i32[] — particles dropped by voxel capacity
-    exact_cert: jax.Array     # i32[] — pallas exactness certificate: count of
-                              # under-covered candidate windows this frame
-                              # (0 == bitwise reference candidate set; always
-                              # 0 on the brute/gather/slotted backends)
+    exact_cert: jax.Array     # i32[] — sites exactness certificate: count of
+                              # candidates/particles beyond the site capacity
+                              # or the slab halo this frame (0 == the
+                              # reference candidate set; always 0 on the
+                              # brute/gather/slotted backends)

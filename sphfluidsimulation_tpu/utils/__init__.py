@@ -9,4 +9,4 @@ symbols). They are framework requirements here.
 from .checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from .diagnostics import StateError, checkify_step, validate_state  # noqa: F401
 from .metrics import MetricsLogger  # noqa: F401
-from .profiling import ThroughputTimer, device_sync, trace  # noqa: F401
+from .profiling import phase_breakdown, trace  # noqa: F401

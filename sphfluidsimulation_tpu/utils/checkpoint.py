@@ -4,8 +4,8 @@ The reference has no persistence: simulation state lives only in GPU
 textures and dies with the scene (SphFluidSimulation.cs:110-120). Here the
 state is a plain pytree, so checkpointing is a host transfer + npz file,
 with the config embedded so a resume can validate structural compatibility.
-Orbax is used when available for async/large checkpoints; the npz path has
-zero extra dependencies and is the default.
+Orbax is used for directory-style paths where it is installed; the npz
+path has zero extra dependencies and is the default.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ def save_checkpoint(path: str, state: ParticleState, cfg: SimConfig, *,
     """Write state + config (+ metadata) to ``path``.
 
     A ``.npz`` path uses the zero-dependency writer; a directory-style path
-    (no extension) uses orbax when available (async-capable, sharded-array
-    aware — the right tool for multi-chip states).
+    (no extension) uses orbax (sharded-array aware), and raises a clear
+    ImportError where orbax is not installed.
     """
     meta = {"format_version": _FORMAT_VERSION, "frame": int(frame),
             "config": cfg.as_dict(), "extra": extra or {}}
@@ -45,8 +45,19 @@ def save_checkpoint(path: str, state: ParticleState, cfg: SimConfig, *,
     )
 
 
+def _orbax():
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "orbax is not installed, and a checkpoint path without the "
+            ".npz suffix needs it; give a path ending in .npz to use the "
+            "built-in writer") from e
+    return ocp
+
+
 def _save_orbax(path: str, state: ParticleState, meta: dict) -> None:
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     with ocp.PyTreeCheckpointer() as ckptr:
         ckptr.save(os.path.abspath(path),
@@ -57,7 +68,7 @@ def _save_orbax(path: str, state: ParticleState, meta: dict) -> None:
 
 
 def _load_orbax(path: str) -> tuple[ParticleState, SimConfig, dict]:
-    import orbax.checkpoint as ocp
+    ocp = _orbax()
 
     with ocp.PyTreeCheckpointer() as ckptr:
         tree = ckptr.restore(os.path.abspath(path))

@@ -2,7 +2,7 @@
 
 The reference's only runtime guard is the in-kernel NaN trap
 (VelPos.compute:143-147). Beyond the always-on per-particle ``nan_count``
-and the Pallas exactness certificates, this module adds:
+and the sites exactness certificates, this module adds:
 
 * ``validate_state`` — host-side invariant checks (finite, in-cube, shapes)
   raising ``StateError`` with a diagnosis;

@@ -55,6 +55,7 @@ def test_run_slab_shards(tmp_path, capsys):
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["shards"] == 4 and rec["lost"] == 0
+    assert sorted(rec["shard_devices"]) == [0, 1, 2, 3]
 
     # resume continues from the checkpointed frame (slab path honors it)
     rc = main(["run", *TINY, "--neighbor", "sites", "--frames", "1",
@@ -71,15 +72,17 @@ def test_run_slab_rejects_unsupported_flags(tmp_path, capsys):
     assert "--corrected" in capsys.readouterr().err
 
 
-def test_bench_host_loop(capsys):
-    # host-loop bench mode: chained per-frame dispatches (the flagship-
-    # scale sites composition; see bench._host_rollout) — tiny shapes
-    from sphfluidsimulation_tpu.cli import main
+def test_bench(capsys):
+    # one scan rollout per window on the default backend, spawn and late
+    # windows, labelled with the device it ran on
+    from sphfluidsimulation_tpu.bench import DEFAULT_NEIGHBOR
 
     rc = main(["bench", "--particles", "1024", "--frames", "2",
-               "--warmup", "1", "--neighbor", "sites", "--host-loop"])
+               "--late-after", "3"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert out["host_loop"] is True
-    assert out["site_bands"] >= 1
-    assert out["value"] > 0
+    assert out["neighbor"] == DEFAULT_NEIGHBOR
+    assert out["platform"] == "cpu" and out["device_count"] >= 1
+    assert out["frames_window"] == [0, 2]
+    assert out["late"]["frames_window"] == [4, 6]
+    assert out["value"] > 0 and out["late"]["value"] > 0

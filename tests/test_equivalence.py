@@ -119,6 +119,19 @@ def test_slotted_step_matches_gather_and_brute():
     assert outs["slotted"][2] == outs["gather"][2] == outs["brute"][2]
 
 
+def test_voxel_capacity_none_raises_on_slot_backends():
+    # the slot backends allocate static [n_cells, capacity] arrays, so the
+    # uncapped bucket fails loudly there instead of being substituted
+    from sphfluidsimulation_tpu.sim.stepper import make_frame_step
+    cfg = SimConfig(particle_number=1024, bucket_resolution=11, preset=0,
+                    gas_constant=20.0, rest_density=1.7, viscosity=0.05,
+                    stiffness_coefficient=1000.0, frame_dt=1 / 240,
+                    voxel_capacity=None)
+    for nb in ("slotted", "gather"):
+        with pytest.raises(ValueError):
+            make_frame_step(cfg, neighbor=nb)
+
+
 @pytest.mark.slow
 def test_self_pair_skip_matches_brute_on_inf_velocities():
     """VelPos.compute:82 `if (j == id_1d) continue`: a particle carrying
@@ -126,14 +139,7 @@ def test_self_pair_skip_matches_brute_on_inf_velocities():
     the reference never does. Brute (which skips self, ops/brute.py) is
     the oracle; the SLOTTED rollout must reproduce its NaN-trap
     population and trajectories exactly on a violent state with injected
-    inf velocities (VERDICT round 4 weak #3). The pallas rollout cannot
-    be held to whole-rollout parity on this state — inf particles
-    teleport beyond the fused kernel's ±1-cell drift envelope, which the
-    drift CERTIFICATE counts as a candidate-set deviation by design
-    ("loud, not wrong") — so its self-skip is pinned at the force-pass
-    level instead (tests/test_pallas.py::
-    test_pallas_forces_skip_self_on_inf_velocities, exact candidate set
-    at frame start)."""
+    inf velocities."""
     from sphfluidsimulation_tpu.sim.stepper import (initial_state,
                                                     make_frame_step)
 

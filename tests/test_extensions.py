@@ -1,5 +1,6 @@
 """XSPH + Monaghan artificial viscosity (framework extensions, BASELINE
-config 3): slotted implementation vs all-pairs oracle, physical effect."""
+config 3): slotted and sites implementations vs all-pairs oracle,
+physical effect."""
 
 import jax
 import jax.numpy as jnp
@@ -83,10 +84,10 @@ def test_unsupported_backend_raises():
 
 
 @pytest.mark.slow
-def test_pallas_extensions_match_brute_oracle():
+def test_sites_extensions_match_brute_oracle():
     cfg = BASE.replace(xsph=0.3, artificial_viscosity=0.4)
     st = initial_state(cfg)
-    sp, mp = jax.jit(make_frame_step(cfg, neighbor="pallas"))(st)
+    sp, mp = jax.jit(make_frame_step(cfg, neighbor="sites"))(st)
     sb, mb = jax.jit(make_frame_step(cfg, neighbor="brute"))(st)
     assert int(mp.exact_cert) == 0  # calm config: certificate holds
     np.testing.assert_allclose(np.asarray(sp.pos), np.asarray(sb.pos),

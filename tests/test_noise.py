@@ -61,5 +61,5 @@ def test_pinned_golden_values():
     got = np.asarray(snoise4(pts))
     expected = np.array(
         [0.0, -0.30039418, 0.18072851, -0.47077897], np.float32)
-    # loose atol: CPU vs TPU float32 rounding may differ in the last ulps
+    # loose atol: float32 rounding differs in the last ulps across backends
     np.testing.assert_allclose(got, expected, atol=1e-4)

@@ -91,6 +91,64 @@ def test_slab_multi_frame_migration():
                                atol=1e-5)
 
 
+def test_distribute_places_one_shard_per_device():
+    # a 4-device slab mesh holds one row-buffer shard on each device, in
+    # slab order — not everything on the first device
+    cfg = _calm_cfg()
+    mesh = _mesh((4,), ("sp",))
+    spec = slab.make_spec(cfg, 4)
+    sst = slab.distribute(_calm_state(cfg), cfg, spec, mesh)
+    for leaf in sst:
+        shards = sorted(leaf.addressable_shards,
+                        key=lambda sh: sh.index[0].start or 0)
+        assert [sh.device for sh in shards] == list(mesh.devices)
+        assert all(sh.data.shape[0] == spec.cap_rows for sh in shards)
+
+
+def _top_heavy_state(cfg, frac=0.75):
+    """A calm state with ``frac`` of the particles in the top z-slab of 4."""
+    st = _calm_state(cfg)
+    n_top = int(frac * cfg.n_particles)
+    z = np.asarray(st.pos)[:, 2].copy()
+    z[:n_top] = np.linspace(0.9, 0.95, n_top)
+    return st._replace(pos=st.pos.at[:, 2].set(jnp.asarray(z)))
+
+
+def test_spec_rows_follow_busiest_slab():
+    # an unbalanced spawn overflows the even-split rows; sized from its
+    # slab populations it fits, and an even split keeps N/D·slack rows
+    cfg = _calm_cfg()
+    n = cfg.n_particles
+    st = _top_heavy_state(cfg)
+    pops = slab.slab_populations(st, cfg, 4)
+    assert pops.sum() == n and pops[3] > 2 * n // 4
+    with pytest.raises(ValueError, match="slab 3 holds"):
+        slab.distribute(st, cfg, slab.make_spec(cfg, 4))
+    spec = slab.make_spec(cfg, 4, busiest=int(pops.max()))
+    assert spec.cap_rows == min(n, int(pops.max()) + n // 4)
+    sst = slab.distribute(st, cfg, spec)
+    assert int(np.asarray(sst.valid).sum()) == n
+    assert slab.make_spec(cfg, 4, busiest=n // 8).cap_rows == 2 * n // 4
+    assert slab.make_spec(cfg, 4, row_slack=8.0).cap_rows == n
+
+
+def test_cli_shards_default_rows_take_unbalanced_state(tmp_path, capsys):
+    # `run --shards` with the default row slack on a state whose top slab
+    # holds 3/4 of the particles: no overflow at distribution, none lost
+    import json
+
+    from sphfluidsimulation_tpu.cli import main
+    from sphfluidsimulation_tpu.utils.checkpoint import save_checkpoint
+
+    cfg = _calm_cfg(particle_number=256, bucket_resolution=7)
+    ck = str(tmp_path / "top.npz")
+    save_checkpoint(ck, _top_heavy_state(cfg), cfg, frame=0)
+    assert main(["run", "--resume", ck, "--shards", "4", "--frames",
+                 "1"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["lost"] == 0 and rec["rows_per_device"] == 256
+
+
 def test_slab_memory_is_decomposed():
     """The spec's shapes prove O(N/D + halo): rows ≈ N/D·slack and the
     local grid spans slab_z + 2·halo z-planes, not R."""

@@ -1,17 +1,15 @@
-"""merge_start_table / run_starts are value-identical to searchsorted.
+"""run_starts is value-identical to searchsorted.
 
-Round-5 perf work replaced the TPU-hostile ``jnp.searchsorted`` lowering
-(a ~log2(n)-trip gather loop, 65 ms at 1M on v5e) with sort/cumsum forms
-in build_frame's start table and every capacity-rank pass. The physics
-contract is bit-identity: these tables feed candidate walks whose pinned
-trajectories must not move.
+``run_starts`` (ops/grid.py) gives the first index of each equal-value run
+of a sorted array; every capacity-rank pass (grid, sites, slab) uses it.
+The physics contract is bit-identity: these ranks feed candidate walks
+whose pinned trajectories must not move.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
 from sphfluidsimulation_tpu.ops.grid import run_starts
-from sphfluidsimulation_tpu.ops.pallas_sph import merge_start_table
 
 
 def _cases(rng):
@@ -26,14 +24,6 @@ def _cases(rng):
     yield a, 64
     # single element / queries beyond every element
     yield np.array([2], np.int32), 9
-
-
-def test_merge_start_table_matches_searchsorted():
-    rng = np.random.default_rng(7)
-    for a, nq in _cases(rng):
-        want = np.searchsorted(a, np.arange(nq), side="left")
-        got = np.asarray(merge_start_table(jnp.asarray(a), nq))
-        np.testing.assert_array_equal(got, want)
 
 
 def test_run_starts_matches_searchsorted_self_join():

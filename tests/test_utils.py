@@ -42,6 +42,19 @@ def test_orbax_checkpoint_roundtrip(tmp_path):
     _roundtrip(os.path.join(tmp_path, "ckdir"))
 
 
+def test_orbax_missing_names_npz(tmp_path, monkeypatch):
+    # a directory-style path needs orbax; without it the error says so and
+    # points at the built-in .npz writer
+    import sys
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    st = initial_state(CFG)
+    with pytest.raises(ImportError, match=r"\.npz"):
+        save_checkpoint(os.path.join(tmp_path, "ckdir"), st, CFG)
+    with pytest.raises(ImportError, match=r"\.npz"):
+        load_checkpoint(os.path.join(tmp_path, "ckdir"))
+
+
 def test_checkpoint_shape_validation(tmp_path):
     path = os.path.join(tmp_path, "ck.npz")
     st = initial_state(CFG)
